@@ -1,0 +1,5 @@
+"""Model configurations of the port."""
+
+from repro_torch.configs.registry import get_config, get_reduced_config
+
+__all__ = ["get_config", "get_reduced_config"]
